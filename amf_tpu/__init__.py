@@ -1,13 +1,13 @@
-"""amf_tpu — a TPU-native active matrix-factorization framework.
+"""amf_tpu — an active matrix-factorization framework in JAX.
 
 A ground-up JAX/XLA rebuild of the capabilities of
 autonlab/active-matrix-factorization (reference layout documented in
-/root/repo/SURVEY.md): active learning on matrix completion, where a
+SURVEY.md): active learning on matrix completion, where a
 factorization model is repeatedly fit, every unobserved cell is scored by a
 selection criterion (often a one-step Bayesian lookahead), and the best cell
 is queried.
 
-Design stance (TPU-first, not a port):
+Design stance (accelerator-first, not a port):
   * immutable pytree model states; every solver is a pure function
     ``(state, problem) -> state``;
   * dense masked representation of the ratings matrix (static shapes) instead

@@ -4,7 +4,7 @@
 // (SURVEY.md §2.1 #16/#17 context): the MATLAB MEX sparse kernels
 // ratingconcentration/spouterprod.c:47-120, sprowsumprod.c:6-60 and
 // sprowcolsum.c, plus a COO<->dense packer serving the data-loader role.
-// The TPU compute path expresses these as XLA einsums (models/ratingconc.py);
+// The device compute path expresses these as XLA einsums (models/ratingconc.py);
 // this library is the host/CPU fast path and the cross-implementation oracle
 // the test suite checks the XLA path against.
 //

@@ -5,7 +5,7 @@ This replaces the reference's Stan/rpy2 sampling backend
 to RStan's C++ NUTS per fit — including a fresh NUTS run per lookahead
 candidate (stan-bpmf/bpmf.py:488-491).  A JAX-native NUTS makes each chain a
 compiled XLA program, so chains (and lookahead candidates) batch with
-``vmap`` onto the MXU instead of fanning out over processes.
+``vmap`` on the device instead of fanning out over processes.
 
 Algorithm: multinomial NUTS (Betancourt 2017) with
   * iterative trajectory doubling (``lax.while_loop`` over tree depth);
@@ -36,10 +36,10 @@ import numpy as np
 # Provenance tag stamped into experiment digests (analysis.parity.digest):
 # identifies which warmup controller generated a recorded NUTS run. Bump
 # whenever an adaptation change alters sampling behavior — cross-session
-# re-record queues key on it (scripts/r6_queue.sh). "esjd-leapfrog-v1" is
-# the windowed jump-squared-per-leapfrog grid controller (BENCHMARKS.md
-# "NUTS mixing at MovieLens scale"); digests without the field predate it
-# (frozen-chain dual-averaging era).
+# re-records key on it. "esjd-leapfrog-v1" is the windowed
+# jump-squared-per-leapfrog grid controller (PARITY.md "Regression
+# adjudication" #2); digests without the field predate it (frozen-chain
+# dual-averaging era).
 SAMPLER_ERA = "esjd-leapfrog-v1"
 
 
@@ -374,8 +374,8 @@ def run_nuts(
     re-initializes the step size by a reasonable-eps search under the new
     metric — the single-window variant froze chains at scale (a mass
     estimated from a still-traveling chain shrinks velocities by orders of
-    magnitude and a short post-switch buffer cannot rescale eps; see
-    BENCHMARKS.md round-3 NUTS-mixing note).
+    magnitude and a short post-switch buffer cannot rescale eps; PARITY.md
+    "Regression adjudication" #2).
 
     eps_anchor / init_inv_mass warm-start adaptation from a previously
     adapted chain on a nearby posterior (the active-loop case: one new

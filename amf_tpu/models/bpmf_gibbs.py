@@ -1,4 +1,4 @@
-"""Bayesian PMF via Gibbs sampling, TPU-native.
+"""Bayesian PMF via Gibbs sampling.
 
 Capability parity with the reference's ``BayesianPMF``
 (python-pmf/bayes_pmf.py:72-545): Salakhutdinov-Mnih BPMF with
@@ -6,7 +6,7 @@ Gaussian-Wishart hyperpriors, per-row conditional Gaussian draws, predictive
 quantities from sample sets, and the expensive ``exp_variance`` one-step
 lookahead (fresh MCMC per candidate per rating value, bayes_pmf.py:457-598).
 
-TPU-first redesign:
+Accelerator-first redesign:
   * per-user/per-item conditional draws — a Python loop of d x d inverses in
     the reference (bayes_pmf.py:283-300), distributed over a process pool in
     ``samples_parallel`` (:402-422) — become one batched precision build
@@ -33,10 +33,10 @@ from typing import NamedTuple, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from amf_tpu.models import pmf
-from amf_tpu.types import Problem, rating_bounds
+from amf_tpu.ops import chol_sample
+from amf_tpu.types import Problem, rating_bounds, pytree_dataclass
 from amf_tpu.utils.rng import lane_keys
 
 
@@ -51,7 +51,7 @@ class GibbsConfig(NamedTuple):
     num_gibbs: int = 2  # factor sweeps per hyperparameter update
 
 
-@struct.dataclass
+@pytree_dataclass
 class ChainState:
     U: jax.Array  # (n, d) current factor sample
     V: jax.Array  # (m, d)
@@ -146,21 +146,19 @@ def _sample_rows(
     # masked Gram for all rows at once, shaped as ONE large-K matmul:
     # S_i = sum_j mask_ij v_j v_j^T  ==  (mask @ vv) with vv_j = vec(v_j v_j^T).
     # (a direct einsum('ij,jk,jl->ikl') lowers to an (n, m, d, d)-ish
-    # contraction with poor MXU tiling; this form is (n, m) @ (m, d^2))
+    # contraction; this form is (n, m) @ (m, d^2))
     vv = (other[:, :, None] * other[:, None, :]).reshape(-1, d * d)
-    S = alpha[None] + beta * (maskf @ vv).reshape(-1, d, d)
     rhs = beta * ((maskf * ratings_c) @ other) + (alpha @ mu)[None, :]
 
     # z ~ N(0, I); x = S^{-1} rhs + chol(S)^{-T} z ~ N(S^{-1} rhs, S^{-1}).
-    # Dispatches to the fused Pallas factor-and-solve kernel on TPU f32
-    # (ops/chol_kernel.py): XLA's batched small-matrix cholesky re-reads the
-    # whole batch every elimination step and dominated the entire lookahead
-    # chain (~98% measured at 70x306 lookahead width, 44-72x slower than the
-    # kernel).
     z = jax.random.normal(key, rhs.shape, dtype=rhs.dtype)
-    from amf_tpu.ops.chol_kernel import chol_solve_sample
-
-    return chol_solve_sample(S, rhs, z)
+    if chol_sample.use_unrolled(d):
+        # the unrolled solve reads S entry-major, (d*d, rows): the Gram
+        # matmul writes that layout directly (vv_j and alpha are symmetric)
+        S_cols = alpha.reshape(-1, 1) + beta * (vv.T @ maskf.T)
+        return chol_sample.chol_solve_sample_unrolled(S_cols, rhs.T, z.T).T
+    S = alpha[None] + beta * (maskf @ vv).reshape(-1, d, d)
+    return chol_sample.chol_solve_sample_reference(S, rhs, z)
 
 
 def gibbs_round(
@@ -173,13 +171,18 @@ def gibbs_round(
     mu_u, alpha_u = sample_hyperparam(k_hu, chain.U, cfg)
     mu_v, alpha_v = sample_hyperparam(k_hv, chain.V, cfg)
 
-    U, V = chain.U, chain.V
-    for _ in range(cfg.num_gibbs):
+    def sweep(_, carry):
+        key, U, V = carry
         key, ku, kv = jax.random.split(key, 3)
         U = _sample_rows(ku, problem.rated, r_c, V, mu_u, alpha_u, cfg.beta)
         V = _sample_rows(
             kv, problem.rated.T, r_c.T, U, mu_v, alpha_v, cfg.beta
         )
+        return key, U, V
+
+    # a loop, not unrolled: each sweep's row draws are compiled once
+    _, U, V = jax.lax.fori_loop(0, cfg.num_gibbs, sweep,
+                                (key, chain.U, chain.V))
     return chain.replace(U=U, V=V)
 
 

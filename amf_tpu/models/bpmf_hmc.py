@@ -25,11 +25,10 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from amf_tpu.mcmc import nuts
 from amf_tpu.models import pmf
-from amf_tpu.types import Problem
+from amf_tpu.types import Problem, pytree_dataclass
 from amf_tpu.utils.rng import lane_keys
 
 
@@ -300,7 +299,7 @@ def log_posterior(
     return lp
 
 
-@struct.dataclass
+@pytree_dataclass
 class BPMFState:
     """Carries the sampled-mode warm start (stan-bpmf/bpmf.py:218-220).
 
@@ -360,7 +359,7 @@ def samples(
     from the best-lp draw. Returns (state, {'U','V','lp__'}).
 
     chains > 1 vmaps independent chains (num_samps draws each, pooled) — the
-    TPU replacement for the reference's process-parallel Stan chains
+    device-parallel replacement for the reference's process-parallel Stan chains
     (stan-bpmf/bpmf.py:314); warmup runs per chain. chain_mesh additionally
     shards the chain axis over a device mesh (parallel.sharding
     .sharded_chain_map) — identical draws to the vmapped path, since

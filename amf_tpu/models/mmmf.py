@@ -1,4 +1,4 @@
-"""Max-Margin Matrix Factorization (MMMF), TPU-native.
+"""Max-Margin Matrix Factorization (MMMF).
 
 Capability parity with the reference's MATLAB SDP path (mmmf/solveD.m:37-94 +
 evaluate_active.m + select_*.m): soft-margin nuclear-norm MMMF on binary
@@ -6,7 +6,7 @@ labels. The reference solves the dual SDP with YALMIP/SeDuMi per active step
 (an interior-point solve, with a C-jitter retry hack, solveD.m:70-79) and
 extracts factors from the SVD of the dual matrix.
 
-TPU-first replacement: the *primal* convex problem the SDP is dual to,
+Accelerator-first replacement: the *primal* convex problem the SDP is dual to,
 
     min_X  ||X||_*  +  C * sum_{(i,j) observed} max(0, 1 - y_ij X_ij),
 
@@ -16,7 +16,7 @@ solved by ADMM with two closed-form proximal maps:
 ADMM converges to the same global optimum as the interior-point SDP (both
 solve the identical convex program), so margins match SeDuMi's to solver
 tolerance — the BASELINE.md "equivalent margins" target — while every
-iteration is dense matrix work that maps onto the MXU. Warm starts across
+iteration is dense matrix work for the accelerator's matmul units. Warm starts across
 active-learning steps replace the reference's from-scratch re-solves.
 Factors (xu, xv) come from the SVD of the learned X, matching the
 reference's dual-matrix factor extraction (solveD.m:80-88) up to the usual
@@ -29,7 +29,8 @@ from typing import NamedTuple, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from amf_tpu.types import pytree_dataclass
 
 # Provenance tag stamped into experiment digests (analysis.parity.digest).
 # "eigh-svt-v1" = the repaired ADMM solver (eigh-based SVT + cold-restart
@@ -58,7 +59,7 @@ class MMMFConfig(NamedTuple):
     over_relax: float = 1.0
 
 
-@struct.dataclass
+@pytree_dataclass
 class MMMFState:
     """ADMM variables, carried across active steps for warm starting."""
 
@@ -209,7 +210,7 @@ class MaxNormConfig(NamedTuple):
     lr0: float = 0.1
 
 
-@struct.dataclass
+@pytree_dataclass
 class MaxNormState:
     U: jax.Array
     V: jax.Array

@@ -22,13 +22,12 @@ from typing import NamedTuple, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from amf_tpu.ops.linesearch import DescentInfo, adaptive_descent
 from amf_tpu.ops.moments import mn_pred_mean_var
 from amf_tpu.ops.psd import project_psd
 from amf_tpu.models.pmf import PMFState
-from amf_tpu.types import Problem
+from amf_tpu.types import Problem, pytree_dataclass
 
 
 class MNConfig(NamedTuple):
@@ -42,7 +41,7 @@ class MNConfig(NamedTuple):
     max_fit_steps: int = 500
 
 
-@struct.dataclass
+@pytree_dataclass
 class MNState:
     mean: jax.Array  # (n+m, d)
     cov_useritems: jax.Array  # (n+m, n+m)

@@ -22,11 +22,10 @@ from typing import Dict, NamedTuple, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from amf_tpu.mcmc import nuts
 from amf_tpu.models.bpmf_hmc import HMCConfig, _prior_logp_half
-from amf_tpu.types import Problem
+from amf_tpu.types import Problem, pytree_dataclass
 
 
 class NewItemsShapes(NamedTuple):
@@ -91,7 +90,7 @@ def log_posterior(
     return lp - 0.5 * jnp.sum(err * err) / cfg.rating_std**2
 
 
-@struct.dataclass
+@pytree_dataclass
 class NewItemsState:
     mode_q: jax.Array
     mode_lp: jax.Array

@@ -1,4 +1,4 @@
-"""MAP Probabilistic Matrix Factorization, TPU-native.
+"""MAP Probabilistic Matrix Factorization.
 
 Capability parity with the reference's ``ProbabilisticMatrixFactorization``
 (python-pmf/pmf.py:22-335 and its Cython twin pmf_cy.pyx:34-291): Gaussian
@@ -7,9 +7,9 @@ gradient ascent (``fit_lls``), an SGD minibatch variant with momentum and
 validation-based early stopping, and type-II ML updates of the noise/prior
 variances (``update_sigma``/``update_sigma_uv``).
 
-Architecture differences (deliberate, TPU-first):
+Architecture differences (deliberate, accelerator-first):
   * the ratings list + Python loop over nnz in ``gradient`` (pmf.py:132-149)
-    becomes one dense masked matmul pair — the MXU does the whole nnz sweep;
+    becomes one dense masked matmul pair covering the whole nnz sweep;
   * the generator-based ``fit_lls`` becomes ``ops.adaptive_descent``
     (a ``lax.while_loop``), preserving its accept/reject trajectory;
   * state is an immutable pytree so lookahead can ``vmap`` over hypothesized
@@ -26,12 +26,11 @@ from typing import NamedTuple, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from amf_tpu.ops.linesearch import (
     DescentInfo, adaptive_descent, adaptive_descent_poly,
 )
-from amf_tpu.types import Problem
+from amf_tpu.types import Problem, pytree_dataclass
 
 
 class PMFConfig(NamedTuple):
@@ -50,7 +49,7 @@ class PMFConfig(NamedTuple):
     sig_v_var: float = -1.0
 
 
-@struct.dataclass
+@pytree_dataclass
 class PMFState:
     U: jax.Array  # (n, d)
     V: jax.Array  # (m, d)
@@ -329,6 +328,32 @@ def fit_with_sigmas(
 # Batched lookahead refits (the hot path of one-step lookahead scoring)
 
 
+def batched_value_grad(U, V, R, rated, delta_i, delta_j, delta_v, sigmas):
+    """Per-lane neg-log-posterior and ascent gradient with one hypothesized
+    rating (delta_i, delta_j, delta_v) added to the shared (R, rated).
+
+    U (L, n, d), V (L, m, d); sigmas = (sigma_sq, sigma_u_sq, sigma_v_sq).
+    Returns (neg_ll (L,), gu (L, n, d), gv (L, m, d)).
+    """
+    sigma_sq, sigma_u_sq, sigma_v_sq = sigmas[0], sigmas[1], sigmas[2]
+
+    def one(u, v, di, dj, dv):
+        mask = rated.astype(u.dtype).at[di, dj].set(1.0)
+        rv = R.astype(u.dtype).at[di, dj].set(dv)
+        pred = u @ v.T
+        resid = mask * (rv - pred)
+        neg_ll = (
+            jnp.sum(resid * resid) / (2 * sigma_sq)
+            + jnp.sum(u * u) / (2 * sigma_u_sq)
+            + jnp.sum(v * v) / (2 * sigma_v_sq)
+        )
+        gu = resid @ v / sigma_sq - u / sigma_u_sq
+        gv = resid.T @ u / sigma_sq - v / sigma_v_sq
+        return neg_ll, gu, gv
+
+    return jax.vmap(one)(U, V, delta_i, delta_j, delta_v)
+
+
 def fit_lookahead_batch(
     state: PMFState,
     problem: Problem,
@@ -337,147 +362,31 @@ def fit_lookahead_batch(
     delta_v: jax.Array,  # (L,) hypothesized values
     cfg: PMFConfig,
     max_steps: int,
-    use_pallas: bool = True,
-    block_rows: int = 256,
-    bf16: bool = False,
-    lane_block: int = 0,  # >0: lane-blocked kernel (LB lanes share one base
-    # DMA; ops.pallas_kernels.pmf_batched_value_grad_t) — the fast TPU path
-    fused: bool = False,  # whole line search inside ONE pallas kernel
-    # (ops.pallas_kernels.pmf_lookahead_fused_t); requires lane_block>0
-    poly_ls: bool = False,  # polynomial-in-alpha epoch loop: rejected lrs
-    # are adjudicated by the exact improvement quartic (one coefficient
-    # kernel pass per accepted step instead of a value+grad pass per
-    # proposal; ops.pallas_kernels.pmf_line_coeffs_t). requires lane_block>0
 ) -> Tuple[jax.Array, jax.Array, jax.Array]:
     """Refit the MAP factors for L hypothesized (i, j, v) ratings at once.
 
-    Same adaptive-LR accept/reject semantics as ``fit`` but vectorized over
-    lanes with the fused Pallas kernel (ops.pallas_kernels): the base R/mask
-    are shared across lanes and per-lane deltas are applied in-kernel, so no
-    per-lane (n, m) problem copies or residual intermediates ever reach HBM —
-    the memory behavior that makes plain vmap-of-``fit`` OOM/bandwidth-bound
-    on reference-scale matrices.
+    Same adaptive-LR accept/reject semantics as ``fit``, vectorized over
+    lanes: every lane starts from ``state`` and sees the shared R/mask plus
+    its own added rating.
 
     Returns (U (L, n, d), V (L, m, d), neg_ll (L,)).
     Note: assumes subtract_mean=False (the ActivePMF setting).
     """
-    from amf_tpu.ops import pallas_kernels as pk
-
     L = delta_i.shape[0]
     n, m = problem.shape
     sigmas = jnp.stack(
         [state.sigma_sq, state.sigma_u_sq, state.sigma_v_sq]
     ).astype(jnp.float32)
-    if fused and lane_block:
-        # single-kernel path: base factors in once, final factors out once,
-        # all line-search state in VMEM/SMEM scratch
-        ls_params = jnp.array(
-            [cfg.learning_rate, cfg.stop_thresh, cfg.min_learning_rate],
-            jnp.float32,
-        )
-        f, Ut, Vt = pk.pmf_lookahead_fused_t(
-            state.U.T.astype(jnp.float32), state.V.T.astype(jnp.float32),
-            problem.R_obs, problem.rated, delta_i, delta_j, delta_v,
-            sigmas, ls_params, max_steps=max_steps, block_rows=block_rows,
-            lanes_per_block=lane_block, bf16=bf16,
-        )
-        return Ut.transpose(0, 2, 1), Vt.transpose(0, 2, 1), f
-    if lane_block:
-        # transposed-factor carry: the lane-blocked kernel works in
-        # (lane, d, rows) layout end to end; transpose once at the boundary
-        kernel = lambda Ut, Vt: pk.pmf_batched_value_grad_t(
-            Ut, Vt, problem.R_obs, problem.rated,
-            delta_i, delta_j, delta_v, sigmas, block_rows=block_rows,
-            lanes_per_block=lane_block, bf16=bf16)
-    elif use_pallas:
-        kernel = lambda U, V: pk.pmf_batched_value_grad(
-            U, V, problem.R_obs, problem.rated,
-            delta_i, delta_j, delta_v, sigmas, block_rows=block_rows,
-            bf16=bf16)
-    else:
-        kernel = lambda U, V: pk.pmf_batched_value_grad_reference(
-            U, V, problem.R_obs, problem.rated, delta_i, delta_j, delta_v,
-            sigmas)
+
+    def value_grad(U, V):
+        return batched_value_grad(U, V, problem.R_obs, problem.rated,
+                                  delta_i, delta_j, delta_v, sigmas)
 
     U0 = jnp.broadcast_to(state.U[None], (L, n, cfg.latent_d)).astype(jnp.float32)
     V0 = jnp.broadcast_to(state.V[None], (L, m, cfg.latent_d)).astype(jnp.float32)
-    if lane_block:
-        U0 = U0.transpose(0, 2, 1)
-        V0 = V0.transpose(0, 2, 1)
-        if bf16:
-            # carry factors AND grads at the streaming dtype: the propose/
-            # select bookkeeping between kernel calls is HBM-bound, so a
-            # bf16 carry halves it (scoring-grade; f32 stays exact)
-            U0 = U0.astype(jnp.bfloat16)
-            V0 = V0.astype(jnp.bfloat16)
-    f0, gu0, gv0 = kernel(U0, V0)
-
+    f0, gu0, gv0 = value_grad(U0, V0)
     lr0 = jnp.full((L,), cfg.learning_rate, jnp.float32)
     done0 = jnp.zeros((L,), bool)
-
-    if poly_ls:
-        if not lane_block:
-            raise ValueError("poly_ls requires lane_block > 0")
-        # Epoch loop: one value+grad pass + one coefficient pass per accepted
-        # step; every rejected lr is a row of the (L, T) quartic table below.
-        # Same trajectory semantics as the proposal loop (see
-        # ops.linesearch.adaptive_descent_poly for the scalar twin).
-        coeff_kernel = lambda Ut, Vt, Gut, Gvt: pk.pmf_line_coeffs_t(
-            Ut, Vt, Gut, Gvt, problem.R_obs, problem.rated,
-            delta_i, delta_j, delta_v, sigmas, block_rows=block_rows,
-            lanes_per_block=lane_block, bf16=bf16)
-        T = 64  # rungs: covers lr down to min_lr from any reachable lr
-        rung = jnp.arange(T, dtype=jnp.int32)
-        half_pow = 0.5 ** rung.astype(jnp.float32)
-
-        def pcond(c):
-            *_, done, n_it = c
-            return jnp.any(~done)
-
-        def pbody(c):
-            U, V, gu, gv, lr, f, done, n_it = c
-            c1, c2, c3, c4 = coeff_kernel(U, V, gu, gv)
-            alpha = lr[:, None] * half_pow[None, :]  # (L, T)
-            dlt = alpha * (c1[:, None] + alpha * (
-                c2[:, None] + alpha * (c3[:, None] + alpha * c4[:, None])))
-            accept = jnp.isfinite(dlt) & (dlt > 0)
-            stop_rej = ~accept & (alpha * 0.5 < cfg.min_learning_rate)
-            prev_ok = jnp.concatenate([
-                jnp.ones((alpha.shape[0], 1), bool),
-                (jnp.cumprod((~accept & ~stop_rej).astype(jnp.int32),
-                             axis=1)[:, :-1]).astype(bool),
-            ], axis=1)
-            budget = (n_it[:, None] + rung[None, :]) < max_steps
-            examined = prev_ok & budget & ~done[:, None]
-            hit = examined & accept
-            any_hit = jnp.any(hit, axis=1)
-            t_star = jnp.argmax(hit, axis=1)
-            a_star = jnp.take_along_axis(alpha, t_star[:, None], 1)[:, 0]
-            d_star = jnp.take_along_axis(dlt, t_star[:, None], 1)[:, 0]
-            consumed = jnp.where(
-                any_hit, t_star.astype(jnp.int32) + 1,
-                jnp.sum(examined.astype(jnp.int32), axis=1))
-            stepm = any_hit[:, None, None]
-            U = jnp.where(stepm, (U + a_star[:, None, None] * gu).astype(U.dtype), U)
-            V = jnp.where(stepm, (V + a_star[:, None, None] * gv).astype(V.dtype), V)
-            # refresh value+grad at the (possibly) new point; on non-accepting
-            # lanes this recomputes the same point deterministically
-            f2, gu2, gv2 = kernel(U, V)
-            lr = jnp.where(any_hit, a_star * 1.25,
-                           lr * (0.5 ** consumed.astype(jnp.float32)))
-            done = done | jnp.where(any_hit, d_star < cfg.stop_thresh, True)
-            return (U, V, gu2, gv2, lr, f2, done,
-                    (n_it + consumed).astype(jnp.int32))
-
-        U, V, _, _, _, f, _, _ = jax.lax.while_loop(
-            pcond, pbody,
-            (U0, V0, gu0, gv0, lr0, f0, done0,
-             jnp.zeros((L,), jnp.int32)),
-        )
-        if lane_block:
-            U = U.transpose(0, 2, 1).astype(jnp.float32)
-            V = V.transpose(0, 2, 1).astype(jnp.float32)
-        return U, V, f
 
     def cond(c):
         *_, done, it = c
@@ -485,9 +394,9 @@ def fit_lookahead_batch(
 
     def body(c):
         U, V, gu, gv, lr, f, done, it = c
-        Up = (U + lr[:, None, None] * gu).astype(U.dtype)
-        Vp = (V + lr[:, None, None] * gv).astype(V.dtype)
-        fp, gup, gvp = kernel(Up, Vp)
+        Up = U + lr[:, None, None] * gu
+        Vp = V + lr[:, None, None] * gv
+        fp, gup, gvp = value_grad(Up, Vp)
         accept = jnp.isfinite(fp) & (fp < f) & ~done
         reject = ~accept & ~done
         conv = jnp.where(
@@ -507,9 +416,6 @@ def fit_lookahead_batch(
     U, V, _, _, _, f, _, _ = jax.lax.while_loop(
         cond, body, (U0, V0, gu0, gv0, lr0, f0, done0, jnp.int32(0))
     )
-    if lane_block:
-        U = U.transpose(0, 2, 1).astype(jnp.float32)
-        V = V.transpose(0, 2, 1).astype(jnp.float32)
     return U, V, f
 
 

@@ -1,4 +1,4 @@
-"""Rating-concentration (maxent) matrix completion, TPU-native.
+"""Rating-concentration (maxent) matrix completion.
 
 Capability parity with the reference's ratingconcentration/ MATLAB+MEX suite
 (ratingconcentration.m, maxentmulti.m, dual3.m, computep.m, setbounds.m,
@@ -8,7 +8,7 @@ per-row/per-column expected feature vectors are matched to the observed
 averages within McDiarmid-style concentration bounds, fit through the
 box-constrained dual over Lagrange multipliers (gamma+/-, lambda+/-).
 
-TPU-first redesign:
+Accelerator-first redesign:
   * the dual objective is a dense masked logsumexp over (value, row, column)
     — the reference's sparse MEX inner loops (spouterprod.c:47-120,
     sprowsumprod.c) become batched einsums, and its explicit gradient
@@ -33,10 +33,9 @@ from typing import NamedTuple, Optional, Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from amf_tpu.ops.lbfgsb import lbfgsb
-from amf_tpu.types import Problem
+from amf_tpu.types import Problem, pytree_dataclass
 
 
 def feature_map(values: Tuple[float, ...]) -> np.ndarray:
@@ -91,7 +90,7 @@ class RCConfig(NamedTuple):
     pgtol: float = 1e-7
 
 
-@struct.dataclass
+@pytree_dataclass
 class RCData:
     """Static-per-problem tensors for the dual."""
 

@@ -6,7 +6,7 @@ vec(U, V) fit by gradient descent on KL(q || PMF model) with PSD projection
 after every covariance step, plus the batched predictive quantities the
 selection criteria consume.
 
-TPU-first differences:
+Accelerator-first differences:
   * the KL and all moments are the closed-form all-pairs einsums of
     ``ops.moments`` (the reference calls per-cell Cython kernels in Python
     loops, active_pmf.py:215-229, 301-390);
@@ -24,13 +24,12 @@ from typing import NamedTuple, Optional, Tuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
 from amf_tpu.ops.linesearch import DescentInfo, adaptive_descent
 from amf_tpu.ops.moments import vn_pred_covs, vn_pred_mean_var
 from amf_tpu.ops.psd import project_psd
 from amf_tpu.models.pmf import PMFState
-from amf_tpu.types import Problem
+from amf_tpu.types import Problem, pytree_dataclass
 
 
 class VNConfig(NamedTuple):
@@ -56,7 +55,7 @@ class VNConfig(NamedTuple):
     cov_param: str = "psd-project"  # or "chol"
 
 
-@struct.dataclass
+@pytree_dataclass
 class VNState:
     mean: jax.Array  # ((n+m)*d,)
     cov: jax.Array  # ((n+m)*d, (n+m)*d)
@@ -189,11 +188,10 @@ def _fit_normal_chol(
 
     def cov_of(L):
         Lt = jnp.tril(L)
-        # HIGHEST precision is required on TPU: the default bf16 matmul
-        # error (~1e-2 relative) dwarfs the min_eig floor, leaving the
-        # reconstructed covariance indefinite for the KL's cholesky/logdet
-        # — measured as wholesale-NaN chol scores on chip while CPU f32
-        # was finite (probe_vn_decomp.json 2026-08-20, BENCHMARKS round 5)
+        # HIGHEST precision: a reduced-precision f32 matmul (bf16 or TF32
+        # passes, ~1e-3..1e-2 relative error) dwarfs the min_eig floor and
+        # leaves the reconstructed covariance indefinite for the KL's
+        # cholesky/logdet
         return (
             jnp.matmul(Lt, Lt.T, precision=jax.lax.Precision.HIGHEST)
             + floor * eye

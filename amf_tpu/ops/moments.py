@@ -4,7 +4,7 @@ Reference analogues: python-pmf/normal_exps_cy.pyx:40-135 (scalar moments,
 one cell at a time inside O(d^2) Python/Cython loops) and
 matrix_normal_exps_cy.pyx:28-154 (Kronecker-structured versions).
 
-TPU-first redesign: the per-cell scalar kernels become all-pairs einsums, so
+Accelerator-first redesign: the per-cell scalar kernels become all-pairs einsums, so
 quantities the reference computes cell-by-cell inside a multiprocessing
 fan-out (e.g. ``approx_pred_means_vars``, active_pmf.py:301-322, and
 ``approx_pred_covs``, :324-390) are one device pass each.

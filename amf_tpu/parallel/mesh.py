@@ -1,7 +1,7 @@
 """Device-mesh helpers.
 
 The reference's entire parallel substrate is a lock-guarded
-``multiprocessing.Pool`` + pickle IPC (SURVEY.md §2.4/§5.8). The TPU-native
+``multiprocessing.Pool`` + pickle IPC (SURVEY.md §2.4/§5.8). The
 replacement is the JAX runtime itself: a 1-D ``Mesh`` over which the
 embarrassingly-parallel candidate axis of lookahead scoring is sharded with
 ``shard_map``; the final argmax is the only collective.

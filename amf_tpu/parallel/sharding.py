@@ -3,9 +3,9 @@
 The candidate axis of one-step lookahead is the framework's scaling axis
 (SURVEY.md §2.4.1): per-candidate refits are independent until the final
 argmax, so candidates shard over the mesh via ``shard_map`` with a single
-gather at the end — the TPU-native replacement for the reference's
-lock-guarded multiprocessing pool (active_pmf.py:1064-1082). Collectives ride
-ICI; no pickle IPC.
+gather at the end — the device-parallel replacement for the reference's
+lock-guarded multiprocessing pool (active_pmf.py:1064-1082). Collectives are
+XLA's; no pickle IPC.
 """
 
 from __future__ import annotations
@@ -82,7 +82,7 @@ def best_candidate(scores: jax.Array, queryable_flat: jax.Array, maximize: bool)
 
 def sharded_chain_map(run_one, mesh: Mesh, axis_name: str = CANDIDATE_AXIS):
     """vmap a per-chain function with the chain axis sharded over the mesh —
-    the TPU-native replacement for the reference's process-parallel Stan
+    the device-parallel replacement for the reference's process-parallel Stan
     chains (stan-bpmf/bpmf.py:314 ``chains`` fan-out over R processes).
 
     run_one(key) -> pytree of per-chain outputs. Returns fn(keys (C, 2)) ->

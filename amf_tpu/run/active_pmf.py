@@ -91,10 +91,9 @@ def build_parser():
                          default=False,
                          help="dispatch one bounded device program per "
                          "lookahead tile from the host instead of one fused "
-                         "sweep (keeps long refit fan-outs under the TPU "
-                         "worker's program-duration limit)")
+                         "sweep (bounded device programs)")
     running.add_argument("--float32", action="store_true",
-                         help="run in float32 (TPU-native dtype)")
+                         help="run in float32")
     add_bool_opt(running, "verbose", default=True)
 
     results = parser.add_argument_group("Results")

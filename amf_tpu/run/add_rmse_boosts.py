@@ -2,8 +2,9 @@
 
 Mirrors the reference ``add_rmse_boosts.py`` (188 LoC): for every queryable
 cell, add its TRUE rating, refit, and record the RMSE change — the reference
-fans this out over a worker pool (fit_worker :50); here it is the batched
-Pallas lookahead engine scoring every cell in tiles on-device.
+fans this out over a worker pool (fit_worker :50); here the batched
+lookahead refit (models/pmf.fit_lookahead_batch) scores every cell in tiles
+on-device.
 """
 
 from __future__ import annotations
@@ -21,8 +22,6 @@ def main(argv=None):
     parser.add_argument("--refit-steps", type=int, default=200)
     parser.add_argument("--tile", type=int, default=128)
     parser.add_argument("--seed", type=int, default=0)
-    parser.add_argument("--no-pallas", action="store_false", dest="use_pallas",
-                        default=True)
     parser.add_argument("--out", default="rmse_boosts.pkl")
     args = parser.parse_args(argv)
 
@@ -67,9 +66,7 @@ def main(argv=None):
     @jax.jit
     def tile_rmses(di, dj, dv):
         U, V, _ = pmf.fit_lookahead_batch(
-            st, prob, di, dj, dv, cfg, max_steps=args.refit_steps,
-            use_pallas=args.use_pallas,
-        )
+            st, prob, di, dj, dv, cfg, max_steps=args.refit_steps)
         pred = jnp.einsum("lnd,lmd->lnm", U, V)
         err = jnp.where(test[None], pred - real_j[None], 0.0)
         return jnp.sqrt(

@@ -196,8 +196,8 @@ def catalog() -> Dict[str, Experiment]:
                 "random", "pred-variance",
             ],
             "mmmf": [
-                # f32 on-chip: at 472x413 the f64 path is CPU-pinned (no f64
-                # linalg on TPU) and needs days per full 5-selector sweep
+                # f32: at 472x413 the f64 path needs days per full
+                # 5-selector sweep
                 "amf_tpu.run.active_mmmf", "--load-data", "{data}",
                 "-C", "1", "--cutoff", "3.5", "--steps", "200", "--float32",
                 "--checkpoint", "{out}/ckpt_mmmf.pkl",
@@ -383,11 +383,8 @@ def catalog() -> Dict[str, Experiment]:
             ],
             # full-length exp-variance MCMC lookahead at reference scale:
             # ~20k candidates x 2 values, each lane a MAP refit + 30-sample
-            # Gibbs chain, per step. Host-dispatched tiles (one bounded
-            # device program per 256 candidates; the fused whole-sweep
-            # program did not survive the TPU worker) + the fused Pallas
-            # cholesky row-draw kernel (ops/chol_kernel.py) make this
-            # ~1.4 min/sweep on a v5e chip.
+            # Gibbs chain, per step, in host-dispatched tiles (one bounded
+            # device program per 256 candidates).
             "bayes_lookahead": [
                 "amf_tpu.run.bayes_pmf", "--load-data", "{data}",
                 "--latent-d", "20", "--subtract-mean",

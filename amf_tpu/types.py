@@ -2,21 +2,31 @@
 
 The reference keeps problem state as an append-only ``(i, j, value)`` ratings
 array plus Python ``rated``/``unrated`` sets (reference: python-pmf/pmf.py:42-53,
-64-91).  On TPU we need static shapes, so a problem is a dense value matrix
+64-91).  On an accelerator we need static shapes, so a problem is a dense value matrix
 plus boolean masks; "adding a rating" is a functional mask/value update.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional, Tuple
 
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 
-@struct.dataclass
+def pytree_dataclass(cls):
+    """Frozen dataclass registered as a JAX pytree with every field a leaf.
+
+    ``obj.replace(**changes)`` returns a copy with the named fields changed.
+    """
+    cls = dataclasses.dataclass(frozen=True)(cls)
+    cls.replace = lambda self, **changes: dataclasses.replace(self, **changes)
+    return jax.tree_util.register_dataclass(cls)
+
+
+@pytree_dataclass
 class Problem:
     """Dense masked view of an active matrix-completion problem.
 

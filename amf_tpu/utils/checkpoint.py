@@ -78,7 +78,7 @@ class LoopCheckpointer:
             # stamp would then mislabel the whole run as current-era.
             # Discard and re-record instead of raising: resuming is never
             # right across eras, and an unattended era-hygiene `--redo`
-            # (r7_queue.sh section 9) must not die on a surviving stale
+            # must not die on a surviving stale
             # checkpoint and leave the old digest certified. The stale file
             # is moved aside, not deleted.
             stored_era = self._state.get("_era", "pre-era")

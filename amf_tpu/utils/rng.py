@@ -27,7 +27,7 @@ def lane_keys(key: jax.Array, cand: jax.Array, n_vals: int) -> jax.Array:
     ``jax.random.split(key, C*V)`` would — makes the scores invariant to how
     the candidate axis is tiled (``candidate_tile``) or sharded over a device
     mesh (parallel/sharding.py): every partitioning of the same candidate set
-    computes bitwise-identical lanes. This is the TPU-native replacement for
+    computes bitwise-identical lanes. This is the device-parallel replacement for
     the reference's per-worker global RNG, which had no such invariance
     (SURVEY.md §2.5 "unseeded global RNG everywhere").
 

@@ -19,7 +19,7 @@ import numpy as np
 
 from amf_tpu.utils.platform import setup as _platform_setup
 
-_platform_setup(use_x64=False)  # f32; AMF_PLATFORM=cpu runs it on the host
+_platform_setup(use_x64=False)  # f32; JAX_PLATFORMS=cpu runs it on the host
 
 import jax
 import jax.numpy as jnp

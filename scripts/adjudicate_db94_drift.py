@@ -15,7 +15,7 @@ metric's noise floor:
 
 Writes experiments/drugbank-94x425/adjudication_learning_drift.json.
 The decisive evidence (4-seed replicate bands, `--seeds 4 --only stan`) is
-queued in scripts/r5_queue.sh; until it lands the strict-band failure
+still to be recorded; until it lands the strict-band failure
 STANDS — this artifact documents the drift analysis, it does not downgrade
 the fail.
 """
@@ -69,7 +69,7 @@ def main():
             "single-seed upward drift at the metric noise floor on a "
             "chance-level curve; not yet distinguishable from a mild "
             "criterion pathology — strict-band FAIL stands until the "
-            "4-seed replicate bands (queued, scripts/r5_queue.sh) decide"
+            "4-seed replicate bands decide"
         ),
     }
     path = f"{EXP}/adjudication_learning_drift.json"

@@ -22,9 +22,9 @@ If split-half tau is near 0, the map cannot rank cells better than chance
 at this sample budget and the learning-curve regressions are noise-floor
 pathologies, not bugs. Writes adjudication_noise_floor.json per workload.
 
-Run on CPU (f32): JAX_PLATFORMS ignored here; we force via jax.config.
+Run on CPU (f32), forced via jax.config.
 The `expvar` probe (exp-variance lookahead map, 20k candidates x 30-sample
-chains) runs on the default backend (the TPU chip) instead — it is a full
+chains) runs on the default backend instead — it is a full
 lookahead sweep step and takes hours on CPU.
 """
 import gzip

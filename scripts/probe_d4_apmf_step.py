@@ -5,7 +5,7 @@ results/10x10_discrete4_d4/Makefile:67-76, all 15 vn keys) should run
 f32-on-chip instead of f64-on-CPU: the orphaned round-3 f64 CPU run
 measured 2.65 min/pick => ~60 h for 15 keys x 91 picks, infeasible.
 
-Usage: [AMF_PLATFORM=cpu] python scripts/probe_d4_apmf_step.py [key ...]
+Usage: [JAX_PLATFORMS=cpu] python scripts/probe_d4_apmf_step.py [key ...]
 """
 import os
 import sys
@@ -25,8 +25,6 @@ def main():
 
     dtype = jnp.float64 if f64 else jnp.float32
     print("backend:", jax.default_backend(), "dtype:", dtype.__name__)
-    if not f64 and os.environ.get("AMF_PLATFORM") != "cpu":
-        assert jax.default_backend() != "cpu", "TPU init failed; rerun"
 
     from amf_tpu.active import criteria as criteria_mod
     from amf_tpu.active import lookahead as lookahead_mod

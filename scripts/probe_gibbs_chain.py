@@ -1,12 +1,11 @@
-"""Decompose the ML-100k Gibbs chain's 1.57 s / 128 rounds (BENCHMARKS.md
-"Gibbs BPMF at reference scale") into its per-round components, on-chip.
+"""Decompose the ML-100k Gibbs chain (128 rounds) into its per-round
+components on the accelerator.
 
-The whole-chain time is ~100x off the masked-Gram matmul roofline
-(4 x 1.27 GFLOP/round at ~49 f32 TFLOP/s = ~0.1 ms vs ~12 ms measured), so
-the cost must be in the small-linalg latency chains (hyperparameter draws:
-inv / cholesky / gamma of d x d), the conditional-draw solves, or the
-in-scan prediction statistics.  This probe times each piece as its own
-jitted scan so the split is unambiguous, then re-times the full chain.
+A round's masked-Gram matmuls are 4 x 1.27 GFLOP; the rest is
+small-linalg latency chains (hyperparameter draws: inv / cholesky / gamma
+of d x d), the conditional-draw solves, and the in-scan prediction
+statistics. This probe times each piece as its own jitted scan so the split
+is unambiguous, then re-times the full chain.
 
 Usage: python scripts/probe_gibbs_chain.py [rounds] (default 128)
 """

@@ -2,8 +2,8 @@
 adaptation (eps anchor + diagonal inverse mass) vs the reference's
 full-warmup-per-step behavior (stan-bpmf/bpmf.py:310-314).
 
-Two timings on a synthetic mid-size problem (CPU by default so it can run
-while the chip is busy; pass `tpu` to use the default backend):
+Two timings on a synthetic mid-size problem (CPU by default; pass `device`
+to use the default backend):
   - direct-key sweep (pred-variance): refit cost dominated by warmup
     transitions (w -> w/4) and the skipped reasonable-eps search;
   - exp-variance sweep: every lookahead lane additionally inherits the
@@ -19,7 +19,7 @@ import numpy as np
 
 import jax
 
-if "tpu" not in sys.argv:
+if "device" not in sys.argv:
     jax.config.update("jax_platforms", "cpu")
 
 import jax.numpy as jnp  # noqa: E402

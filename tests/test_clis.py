@@ -216,9 +216,9 @@ def test_choose_training_and_generate_clis(tmp_path):
 
 def test_bpmf_cli_discards_stale_era_checkpoint(data_file, tmp_path):
     """A checkpoint from a different engine era must be discarded, not
-    resumed and not crashed on: unattended era-hygiene --redo queue jobs
-    (scripts/r7_queue.sh section 9) depend on the CLI re-recording from
-    scratch when only a stale-era checkpoint survives."""
+    resumed and not crashed on: unattended era-hygiene --redo jobs depend
+    on the CLI re-recording from scratch when only a stale-era checkpoint
+    survives."""
     import pickle as pkl
 
     from amf_tpu.run import bpmf
@@ -277,3 +277,41 @@ def test_experiment_skip_reasons(tmp_path):
     cat = experiment.catalog()
     assert len(cat) == 12
     assert all(e.source for e in cat.values())
+
+
+def test_add_rmse_boosts_cli(data_file, tmp_path):
+    """Every queryable cell gets the RMSE change of adding its true rating
+    and refitting, the same as a per-cell pmf.fit on that problem."""
+    import jax
+    import jax.numpy as jnp
+
+    from amf_tpu import types
+    from amf_tpu.data.loaders import load_npz_schema
+    from amf_tpu.models import pmf
+    from amf_tpu.run import add_rmse_boosts
+
+    out = str(tmp_path / "boosts.pkl")
+    add_rmse_boosts.main([
+        "--load-data", data_file, "-D", "2", "--refit-steps", "20",
+        "--tile", "8", "--out", out,
+    ])
+    res = pickle.load(open(out, "rb"))
+    data = load_npz_schema(data_file)
+    prob = types.problem_from_ratings(data["_ratings"], real=data["_real"],
+                                      dtype=jnp.float32)
+    queryable = np.asarray(prob.queryable)
+    boosts = res["boosts"]
+    assert np.all(np.isfinite(boosts[queryable]))
+    assert np.all(np.isnan(boosts[~queryable]))
+
+    cfg = pmf.PMFConfig(latent_d=2)
+    st = pmf.init_state(jax.random.PRNGKey(0), *prob.shape, cfg, prob)
+    st, _ = pmf.fit(st, prob, cfg)
+    i, j = (int(x[0]) for x in np.nonzero(queryable))
+    real = np.asarray(data["_real"], np.float32)
+    refit, _ = pmf.fit(st, prob.add_rating(i, j, real[i, j]), cfg,
+                       max_steps=20)
+    pred = np.asarray(pmf.predicted_matrix(refit, cfg))
+    test = np.asarray(prob.test)
+    rmse = np.sqrt(np.mean((pred[test] - real[test]) ** 2))
+    assert boosts[i, j] == pytest.approx(res["base_rmse"] - rmse, abs=1e-4)

@@ -74,7 +74,7 @@ def test_banana_no_nans(key):
 
 
 def test_vmapped_chains(key):
-    """Chains must vmap (the TPU replacement for Stan's process-parallel
+    """Chains must vmap (the device-parallel replacement for Stan's process-parallel
     chains, stan-bpmf/bpmf.py:314)."""
     logp = lambda q: -0.5 * jnp.sum(q**2)
     keys = jax.random.split(key, 4)
@@ -122,7 +122,7 @@ def test_sampler_diagnostics_on_nuts_chains(key):
 
 def test_funnel_chain_keeps_moving(key):
     """Regression guard for the frozen-chain pathology fixed in round 3
-    (BENCHMARKS.md "NUTS mixing at MovieLens scale"): on funnel-shaped
+    (PARITY.md "Regression adjudication" #2): on funnel-shaped
     targets the accept-vs-eps curve is non-monotone and accept-targeting
     dual averaging drove eps to ~4e-5, freezing the chain in place; the
     ESJD-grid warmup must keep the chain traveling. Assert actual

@@ -245,3 +245,70 @@ def test_poly_ls_vmap_safe(rng, key):
                                rtol=1e-10, atol=1e-12)
     np.testing.assert_allclose(np.asarray(V_b), np.asarray(V_a),
                                rtol=1e-10, atol=1e-12)
+
+
+def test_reference_matches_pmf_gradient(rng):
+    """The batched value-and-gradient agrees with models.pmf.gradient and
+    log_likelihood on each lane's own problem."""
+    L, n, m, d = 3, 12, 9, 4
+    U = jnp.asarray(rng.normal(size=(L, n, d)), jnp.float32)
+    V = jnp.asarray(rng.normal(size=(L, m, d)), jnp.float32)
+    R = jnp.asarray(rng.integers(1, 6, size=(n, m)), jnp.float32)
+    rated = jnp.asarray(rng.random((n, m)) < 0.4)
+    di = jnp.asarray(rng.integers(0, n, L), jnp.int32)
+    dj = jnp.asarray(rng.integers(0, m, L), jnp.int32)
+    dv = jnp.asarray(rng.integers(1, 6, L), jnp.float32)
+    sigmas = jnp.asarray([1.0, 10.0, 10.0], jnp.float32)
+    neg_ll, gu, gv = pmf.batched_value_grad(U, V, R, rated, di, dj, dv,
+                                            sigmas)
+    cfg = pmf.PMFConfig(latent_d=d)
+    for lane in range(L):
+        prob = types.Problem(
+            R_obs=R.at[di[lane], dj[lane]].set(dv[lane]),
+            rated=rated.at[di[lane], dj[lane]].set(True),
+            queryable=jnp.zeros_like(rated),
+            test=rated,
+        )
+        st = pmf.PMFState(
+            U=U[lane], V=V[lane],
+            sigma_sq=sigmas[0], sigma_u_sq=sigmas[1], sigma_v_sq=sigmas[2],
+            mean_rating=jnp.float32(0),
+        )
+        want_gu, want_gv = pmf.gradient(st, prob, cfg)
+        want_ll = -pmf.log_likelihood(st, prob, cfg)
+        np.testing.assert_allclose(np.asarray(gu[lane]), np.asarray(want_gu),
+                                   rtol=1e-5, atol=1e-5)
+        np.testing.assert_allclose(np.asarray(gv[lane]), np.asarray(want_gv),
+                                   rtol=1e-5, atol=1e-5)
+        assert float(neg_ll[lane]) == pytest.approx(float(want_ll), rel=1e-5)
+
+
+@pytest.mark.parametrize("n, m", [(12, 8), (13, 9)])
+def test_fit_lookahead_batch_matches_per_lane_fit(rng, n, m):
+    """Each lane of the batched refit follows pmf.fit on its own
+    add_rating problem: same accept/reject trajectory, same factors."""
+    d = 3
+    R = jnp.asarray(rng.integers(1, 6, size=(n, m)), jnp.float32)
+    rated = jnp.asarray(rng.random((n, m)) < 0.5)
+    prob = types.Problem(R_obs=jnp.where(rated, R, 0.0), rated=rated,
+                         queryable=~rated, test=rated)
+    cfg = pmf.PMFConfig(latent_d=d)
+    st = pmf.init_state(jax.random.PRNGKey(0), n, m, cfg, prob,
+                        dtype=jnp.float32)
+    st, _ = pmf.fit(st, prob, cfg, max_steps=50)
+    di = jnp.asarray([0, n // 2, n - 1], jnp.int32)
+    dj = jnp.asarray([1, m - 1, 0], jnp.int32)
+    dv = jnp.asarray([3.0, 1.0, 5.0], jnp.float32)
+    steps = 30
+    U, V, f = pmf.fit_lookahead_batch(st, prob, di, dj, dv, cfg,
+                                      max_steps=steps)
+    assert U.shape == (3, n, d) and V.shape == (3, m, d) and f.shape == (3,)
+    for lane in range(3):
+        prob_l = prob.add_rating(di[lane], dj[lane], dv[lane])
+        want, _ = pmf.fit(st, prob_l, cfg, max_steps=steps)
+        np.testing.assert_allclose(np.asarray(U[lane]), np.asarray(want.U),
+                                   rtol=1e-3, atol=1e-4)
+        np.testing.assert_allclose(np.asarray(V[lane]), np.asarray(want.V),
+                                   rtol=1e-3, atol=1e-4)
+        want_f = -pmf.log_likelihood(want, prob_l, cfg)
+        assert float(f[lane]) == pytest.approx(float(want_f), rel=1e-4)

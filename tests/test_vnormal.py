@@ -245,7 +245,7 @@ def test_fit_normal_chol_matches_psd_project_fixpoint(rng, key):
 def test_lookahead_scores_chol_budget_stable_and_lower_kl(rng, key):
     """Characterize the chol fast path at the lookahead level.
 
-    Measured (scripts/probe_vn_decomp.py development, 8x7 d=2): the
+    Measured (8x7 d=2): the
     projected-descent parity path STALLS — its total-variance scores are
     byte-identical at 400 and 3000 proposal budgets (the adaptive LR
     collapses after projection-spoiled proposals and the stop rule fires
